@@ -1,10 +1,10 @@
-"""faspsolver_tpu: a TPU-native sparse iterative solver framework.
+"""faspsolver_tpu: an accelerator-native sparse iterative solver framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference FASP library (Fast Auxiliary Space Preconditioning): Krylov
 subspace methods, algebraic multigrid (classical RS / smoothed aggregation /
 unsmoothed aggregation), geometric multigrid, incomplete factorizations, and
-Schwarz methods — built for TPU hardware: static-shape jitted solve loops,
+Schwarz methods — built for accelerators: static-shape jitted solve loops,
 ELL/block-ELL operators, color-batched smoothers, and shard_map row-block
 distribution over device meshes.
 """

@@ -23,12 +23,9 @@ import numpy as np
 
 def main(argv) -> int:
     import jax
-    # conformance mode by default (CPU + f64, the reference's arithmetic);
-    # FASP_TPU_F32=1 switches to performance mode on the ambient device
-    import os
-    if os.environ.get("FASP_TPU_F32") != "1":
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
+    # the reference's arithmetic (REAL=double) on the default device; the
+    # f32 + refinement mode is reached through solvers.solve_refined
+    jax.config.update("jax_enable_x64", True)
 
     from .constants import PrecondType
     from .io import read_csrvec, read_mtx, read_vec

@@ -1,20 +1,15 @@
 """CLI: python -m faspsolver_tpu.benchmark [--data DIR] [--solver amg|ilu|cg]
-[--min N] [--max N] [--tpu] [--corpus [--scale N]] [--gen]
+[--min N] [--max N] [--corpus [--scale N]] [--gen]
 
 Reference: benchmark/run.sh driving benchmark.ex over benchmark/input.dat.
-Defaults to the shipped MatrixMarket corpus on CPU/f64; --tpu runs
-performance mode on the ambient device in f32.
+Runs on JAX's default device.  The working precision follows
+``jax_enable_x64`` (``JAX_ENABLE_X64=1``: f64 throughout; unset: f32
+solves with f64 refinement).
 """
 import sys
 
-import jax
-
 
 def main(argv) -> int:
-    if "--tpu" not in argv:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
-
     from .harness import run_benchmark, run_corpus, run_generated
 
     def opt(flag, default):

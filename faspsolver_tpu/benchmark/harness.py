@@ -36,14 +36,14 @@ class BenchResult:
     converged: bool
 
 
-def _sync(x) -> float:
-    import jax.numpy as jnp
-    return float(jnp.sum(x))
+def _sync(x) -> None:
+    import jax
+    jax.block_until_ready(x)
 
 
 def _print_platform() -> None:
-    """Stamp the recording with the execution platform/precision so a
-    committed transcript is self-evidently CPU-conformance or TPU-perf."""
+    """Stamp the recording with the execution platform and precision so a
+    committed transcript says where and how it ran."""
     import jax
     from ..ops.operators import default_dtype
     print(f"platform={jax.devices()[0].platform} "
@@ -93,11 +93,11 @@ def _solver_factory(kind: str):
     from ..ops.operators import default_dtype
 
     if np.dtype(default_dtype()) == np.float32:
-        # performance mode (--tpu, f32 ambient): the target tol 1e-8 is
-        # below the f32 residual floor, so the honest TPU configuration
-        # is the framework's documented mixed-precision mode — f32
-        # AMG/ILU-preconditioned vGMRES inside f64 refinement.  Scores
-        # stay lMVU-normalized; `iters` reports total inner iterations.
+        # f32 mode (x64 off): the target tol 1e-8 is below the f32
+        # residual floor, so f32 runs use the framework's mixed-precision
+        # mode — f32 AMG/ILU-preconditioned vGMRES inside f64
+        # refinement.  Scores stay lMVU-normalized; `iters` reports total
+        # inner iterations.
         return _refined_factory(kind)
 
     its = ITSParam(itsolver_type=int(SolverType.VGMRES), tol=1e-8,
@@ -170,7 +170,7 @@ def _refined_factory(kind: str):
         # the ORIGINAL system, so convergence is still the true unscaled
         # residual; only the Krylov correction solves (S A S) y = S r.
         # This squeezes the dynamic range the reduced-precision inner
-        # sees (closed watt__1-class rows in round 3; VERDICT r4 item 6)
+        # sees (closed watt__1-class rows in round 3)
         import scipy.sparse as _sp
 
         from ..formats import CSRMatrix as _CSR
@@ -209,18 +209,15 @@ def _refined_factory(kind: str):
 
         # precision escalation: conditioning beyond the f32-inner budget
         # (nos7-class, cond ~4e9: refinement gains <1 digit a round and
-        # stalls).  Rerun with a device f64 inner solve — XLA-emulated
-        # f64 on TPU (~2^-44 effective), STILL diagonally scaled inside
-        # (measured on nos7: the unscaled emulated solve stalls just
-        # above 1e-8 after 72 iterations; the scaled one converges in
-        # 7).  The escalated run is timed into the score: that IS the
-        # cost of this problem on this platform, not hidden behind a
-        # FAILED row.  The reference is REAL=double throughout
-        # (fasp.h:75).
+        # stalls).  Rerun with a device f64 inner solve, still
+        # diagonally scaled inside.  The escalated run is timed into the
+        # score: that is the cost of this problem on this platform, not
+        # hidden behind a FAILED row.  The reference is REAL=double
+        # throughout (fasp.h:75).
         if not getattr(run, "_esc_announced", False):
             # announce once per problem: the warm and timed runs both
             # escalate, and duplicate banners read as two failures in
-            # the recordings (ADVICE r4)
+            # the recordings
             print(f"  [f32 refinement unconverged at "
                   f"relres={res.relres:.2e} ({res.rounds} rounds, "
                   f"{res.inner_iters} inner iters) -> f64 escalation]")
@@ -229,7 +226,7 @@ def _refined_factory(kind: str):
         # CAUTION: the global x64 flip below changes dtype promotion for
         # ANY tracing that happens inside this window; the inner
         # make_inner(..., jnp.float64) closures are traced here by
-        # design, and nothing else may trace concurrently (ADVICE r4)
+        # design, and nothing else may trace concurrently
         jax.config.update("jax_enable_x64", True)
         try:
             mk64 = 1600 if A.nrow <= 16384 else 400
@@ -328,7 +325,7 @@ def corpus_problems(scale: int = 255):
     anisotropy (1e-3..1e3), jump coefficients (1e2..1e6),
     convection-diffusion (nonsymmetric, 3 strengths), stretched grids,
     3-D anisotropy, plus the isotropic Poisson baselines.  >= 20 scored
-    problems, >= 3 nonsymmetric (VERDICT r4 item 4)."""
+    problems, >= 3 nonsymmetric."""
     from ..testgen import (anisotropic_2d, anisotropic_3d, convdiff_2d,
                            jump_2d, poisson_2d, poisson_3d, stretched_2d)
     n = scale

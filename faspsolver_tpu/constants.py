@@ -1,6 +1,6 @@
 """Solver / preconditioner / AMG enumerations and status codes.
 
-TPU-native re-design of the constant vocabulary of the reference FASP library
+Re-design of the constant vocabulary of the reference FASP library
 (reference: base/include/fasp_const.h).  Values are kept numerically identical
 to the reference where a numeric id is part of the user-facing config surface
 (ini files use the same integer codes), so ini files written for the reference
@@ -31,7 +31,7 @@ class SolverType(enum.IntEnum):
     SGCG = 17
     AMG = 21
     FMG = 22
-    SUPERLU = 31      # direct solvers (dense path on TPU build)
+    SUPERLU = 31      # direct solvers (dense device path)
     UMFPACK = 32
     MUMPS = 33
     PARDISO = 34
@@ -99,7 +99,7 @@ class SmootherType(enum.IntEnum):
     L1DIAG = 10
     JACOBIF = 11        # Jacobi on fine points only
     GSF = 12            # GS on fine points only
-    CHEBYSHEV = 13      # TPU-native addition: fused Chebyshev polynomial
+    CHEBYSHEV = 13      # addition: fused Chebyshev polynomial
     RBGS = 14           # exact red-black GS via parity masks (structured
                         # path; reference: ItrSmootherRBGS.inl / PreGMG.inl
                         # gs2d_2color — the only natively-parallel GS there)
@@ -120,7 +120,7 @@ class CoarseningType(enum.IntEnum):
     RSP = 2            # RS for positive off-diagonals
     CR = 3             # compatible relaxation
     AGGRESSIVE = 4
-    MIS = 5            # maximal-independent-set based (TPU-friendly)
+    MIS = 5            # maximal-independent-set based (parallel)
 
 
 class InterpType(enum.IntEnum):
@@ -168,7 +168,7 @@ UNPT = -1     # undecided point
 # Hierarchy limits (reference: fasp_const.h:258-262)
 MAX_AMG_LVL = 20
 MIN_CDOF = 20          # minimum coarse dof
-OPENMP_HOLDS = 2000    # kept for config parity; TPU build always vectorizes
+OPENMP_HOLDS = 2000    # kept for config parity; device code always vectorizes
 
 # Solver status codes (reference: fasp_const.h:41-68)
 SUCCESS = 0

@@ -2,7 +2,7 @@
 
 Reference: base/include/fasp_block.h:34-66 dBSRmat (MKL-style), container ops
 in base/src/BlaSparseBSR.c.  Block values are stored as a dense (NNZ, nb, nb)
-array — directly consumable by vmapped/batched device kernels (the TPU
+array — directly consumable by vmapped/batched device kernels (the device
 equivalent of the reference's hand-unrolled nb∈{2,3,5,7} loops in
 BlaSpmvBSR.c:301-412 is a batched dot over the trailing (nb, nb) axes).
 """

@@ -1,7 +1,7 @@
 """Host-side CSR container: the ingest/setup-phase sparse matrix.
 
-TPU-native architecture note: the reference keeps one C struct (dCSRmat,
-base/include/fasp.h:151-180) for both setup and solve.  The TPU build splits
+Architecture note: the reference keeps one C struct (dCSRmat,
+base/include/fasp.h:151-180) for both setup and solve.  This framework splits
 the roles: this host container (numpy arrays) is used for I/O, format
 conversion, and AMG/ILU setup-phase graph algorithms; the solve phase operates
 on static-shaped device operators built from it (see

@@ -1,10 +1,10 @@
 """CSRL container: CSR with rows grouped by equal nonzero count.
 
 Reference: dCSRLmat (fasp.h:277-306) — rows of the same length stored
-contiguously so inner loops vectorize.  On TPU the padded-ELL operator is
-this idea taken to its conclusion; CSRL remains useful as a host-side
-staging format: each group is a dense (nrows, len) block that can be fed
-to batched kernels with zero padding waste.
+contiguously so inner loops vectorize.  On the device the padded-ELL
+operator is this idea taken to its conclusion; CSRL remains useful as a
+host-side staging format: each group is a dense (nrows, len) block that
+can be fed to batched kernels with zero padding waste.
 """
 from __future__ import annotations
 

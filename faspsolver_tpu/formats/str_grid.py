@@ -2,7 +2,7 @@
 
 Reference: base/include/fasp.h:316-348 dSTRmat — banded storage for
 structured grids with nc×nc blocks: a diagonal band plus ``nband`` off-bands
-at fixed offsets.  On TPU this layout is ideal: each band is a dense
+at fixed offsets.  On the device this layout is ideal: each band is a dense
 (ngrid, nc, nc) array and SpMV is a sum of shifted batched block products —
 no gathers at all.
 """

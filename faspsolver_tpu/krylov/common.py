@@ -17,6 +17,12 @@ SMALLREAL = 1e-20       # reference SMALLREAL (fasp_const.h)
 SMALLREAL2 = 1e-40      # reference SMALLREAL2: breakdown guard
 
 
+def basis_dot(a, b):
+    """Product with a Krylov basis in full f32/f64: a default-precision f32
+    matmul may run in TF32 on a GPU."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def resolve_precond(M) -> Callable:
     return IdentityPrecond() if M is None else M
 

@@ -3,7 +3,7 @@
 Reference: base/src/KryPgcg.c (generalized CG) and KryPgcr.c (generalized
 conjugate residual).  Both keep a window of previous directions; here the
 window is a dense (restart, n) basis so orthogonalization is matmul-shaped
-(MXU) like the GMRES basis.
+like the GMRES basis.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..constants import StopType
-from .common import SMALLREAL, initial_norms, residual_norms, resolve_precond
+from .common import (SMALLREAL, basis_dot, initial_norms,
+                     residual_norms, resolve_precond)
 from .result import SolveResult
 
 
@@ -39,7 +40,7 @@ def gcg(A, b, x0=None, M=None, *, tol=1e-6, abstol=1e-18, maxit=500,
     restart is ignored), so the default window here is the full maxit,
     capped so the two (R, n) direction buffers stay under a ~2 GB
     device-memory budget (the direction count alone does not bound
-    bytes: maxit=500 at 10M dof would be 80 GB — ADVICE r4).  Pass
+    bytes: maxit=500 at 10M dof would be 80 GB).  Pass
     ``restart`` explicitly for a smaller window.  Implemented as the
     same minimal-residual descent engine as GCR over the preconditioned
     residual directions; for SPD systems full-memory GCG coincides with
@@ -83,12 +84,12 @@ def _gcr(A, M, b, x0, tol, abstol, maxit, R: int, stop_type: int
             q = A(p)
             # orthogonalize q against previous Q (masked matmul, CGS2)
             mask = (jnp.arange(R) < j).astype(dtype)
-            h1 = (Q @ q) * mask
-            p = p - h1 @ P
-            q = q - h1 @ Q
-            h2 = (Q @ q) * mask
-            p = p - h2 @ P
-            q = q - h2 @ Q
+            h1 = basis_dot(Q, q) * mask
+            p = p - basis_dot(h1, P)
+            q = q - basis_dot(h1, Q)
+            h2 = basis_dot(Q, q) * mask
+            p = p - basis_dot(h2, P)
+            q = q - basis_dot(h2, Q)
             qn = jnp.sqrt(jnp.dot(q, q))
             brk = qn <= SMALLREAL
             inv = jnp.where(brk, 0.0, 1.0 / jnp.where(brk, 1.0, qn))

@@ -4,10 +4,10 @@ Reference: base/src/KryPgmres.c (fixed restart), KryPvgmres.c (adaptive
 restart, cr_max/cr_min rule at :79-80,:200-210), KryPvfgmres.c (flexible).
 One generic core serves all three and every matrix format.
 
-TPU-native design choices:
+Device design choices:
 - The Krylov basis lives as a dense (restart+1, n) array; orthogonalization
   is CGS2 (classical Gram-Schmidt applied twice) — two (R,n)x(n,) matmuls
-  per step that map straight onto the MXU, instead of the reference's
+  per step, in full precision, instead of the reference's
   sequential modified Gram-Schmidt loop (KryPgmres.c:199-210).  CGS2 has
   the same numerical robustness in practice and is the standard
   accelerator-side choice.
@@ -25,8 +25,10 @@ import jax
 import jax.numpy as jnp
 
 from ..constants import StopType
-from .common import SMALLREAL, initial_norms, residual_norms, resolve_precond
+from .common import (SMALLREAL, basis_dot, initial_norms,
+                     residual_norms, resolve_precond)
 from .result import SolveResult
+
 
 _CR_MAX = 0.99    # cos(8 deg)  (reference: KryPvgmres.c:79)
 _CR_MIN = 0.174   # cos(80 deg) (reference: KryPvgmres.c:80)
@@ -37,9 +39,8 @@ _RESTART_DEC = 3
 # (-42), the GMRES analog of the reference's stagnation safeguards
 # (KryUtil.inl ITS_* checks).  Without it a solve pinned at the f32
 # residual floor burns the entire maxit budget inside ONE compiled
-# while_loop — at maxit=2000/restart=60 that is a ~70 s device program,
-# long enough to trip the TPU runtime's execution watchdog and take the
-# worker down (observed on v5e).
+# while_loop — at maxit=2000/restart=60 a single device program that runs
+# for a minute or more, which a runtime's execution watchdog may kill.
 _STAG_FACTOR = 0.995
 _MAX_STAG_CYCLES = 4
 
@@ -125,12 +126,12 @@ def _gmres(A, M, b, x0, tol, abstol, maxit, R: int, stop_type: int,
             z = M(v)
             w = A(z)
             Zl = st["Z"].at[j].set(z) if flexible else None
-            # CGS2 against V[0..j] via masked matmuls (MXU path)
+            # CGS2 against V[0..j] via masked matmuls
             mask = (jnp.arange(R1) <= j).astype(dtype)
-            h1 = (V @ w) * mask
-            w = w - h1 @ V
-            h2 = (V @ w) * mask
-            w = w - h2 @ V
+            h1 = basis_dot(V, w) * mask
+            w = w - basis_dot(h1, V)
+            h2 = basis_dot(V, w) * mask
+            w = w - basis_dot(h2, V)
             h = h1 + h2
             hn = jnp.sqrt(jnp.dot(w, w))
             happy = hn <= SMALLREAL * 1e-8
@@ -181,9 +182,9 @@ def _gmres(A, M, b, x0, tol, abstol, maxit, R: int, stop_type: int,
                          jnp.eye(R, dtype=dtype))
         gvec = jnp.where(cols < j, st["g"][:R], 0.0)
         y = jax.scipy.linalg.solve_triangular(Rmat, gvec, lower=False)
-        u = y @ st["V"][:R]
+        u = basis_dot(y, st["V"][:R])
         if flexible:
-            dx = y @ st["Z"]
+            dx = basis_dot(y, st["Z"])
         else:
             dx = M(u)
         return x + dx, j

@@ -55,7 +55,8 @@ class BlockJacobiPrecond:
     def __call__(self, r: jax.Array) -> jax.Array:
         nb = self.dinv.shape[1]
         rb = r.reshape(-1, nb)
-        return jnp.einsum("nab,nb->na", self.dinv, rb).reshape(-1)
+        return jnp.einsum("nab,nb->na", self.dinv, rb,
+                          precision=jax.lax.Precision.HIGHEST).reshape(-1)
 
     @classmethod
     def from_bsr(cls, A, dtype=None) -> "BlockJacobiPrecond":

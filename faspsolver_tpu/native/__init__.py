@@ -1,28 +1,36 @@
 """Native (C++) setup kernels, loaded through ctypes.
 
-The TPU compute path is JAX/XLA; the setup phase's irregular graph work
+The device solve path is JAX/XLA; the setup phase's irregular graph work
 (ILU factorization, coloring, matching, C/F splitting, level scheduling)
 is sequential host work — the reference implements it as serial C
 (BlaILU.c, BlaSparseCSR.c, PreAMGCoarsenRS.c) and so do we.
 
 The shared library is built on demand with g++ (no pybind11: plain C ABI +
-ctypes).  Every entry point has a NumPy/SciPy fallback in the caller, so
-the framework works without a toolchain; ``available()`` reports status.
+ctypes) from the two tracked sources beside this file.  Its file name
+carries a hash of those sources, the compile flags and the host CPU, so a
+library built from other sources, with other flags or for another CPU
+(``-march=native``) is never loaded: a checkout copied to another machine
+builds its own.  Every entry point has a NumPy/SciPy fallback in the
+caller, so the framework works without a toolchain; ``available()``
+reports status and ``build()`` raises the compiler's error.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "fasp_native.cpp")
-_SRC2 = os.path.join(_HERE, "band_ops.cpp")
-_SO = os.path.join(_HERE, "_fasp_native.so")
+_SOURCES = (os.path.join(_HERE, "fasp_native.cpp"),
+            os.path.join(_HERE, "band_ops.cpp"))
+_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fopenmp", "-shared",
+          "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -32,18 +40,56 @@ _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 
 
-def _build() -> bool:
+def host_id() -> str:
+    """Machine type plus the CPU's model and feature flags: what
+    ``-march=native`` code depends on."""
+    fields = {}
     try:
-        src_mtime = max(os.path.getmtime(_SRC), os.path.getmtime(_SRC2))
-        if os.path.exists(_SO) and os.path.getmtime(_SO) >= src_mtime:
-            return True
-        cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fopenmp",
-               "-shared", "-fPIC", _SRC, _SRC2, "-o", _SO + ".tmp"]
-        subprocess.run(cmd, check=True, capture_output=True, timeout=240)
-        os.replace(_SO + ".tmp", _SO)
-        return True
-    except Exception:
-        return False
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "flags") and key not in fields:
+                    fields[key] = val.strip()
+    except OSError:
+        pass
+    return "|".join([platform.machine(), platform.processor(),
+                     fields.get("model name", ""), fields.get("flags", "")])
+
+
+def lib_tag(sources: Sequence[str] = _SOURCES,
+            flags: Sequence[str] = _FLAGS,
+            host: Optional[str] = None) -> str:
+    """Hash of the sources' bytes, the compile flags and the host."""
+    h = hashlib.sha256()
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(flags).encode())
+    h.update((host_id() if host is None else host).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(tag: str) -> str:
+    return os.path.join(_HERE, f"_fasp_native-{tag}.so")
+
+
+def build() -> str:
+    """Path of the library for these sources, flags and host, compiled
+    first if it does not exist yet.  Raises the compiler's error."""
+    so = lib_path(lib_tag())
+    if os.path.exists(so):
+        return so
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", *_FLAGS, *_SOURCES, "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True,
+                       timeout=240)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -52,11 +98,9 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _build():
-            return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(build())
+        except (OSError, subprocess.SubprocessError):
             return None
         lib.fasp_greedy_color.restype = ctypes.c_int
         lib.fasp_greedy_color.argtypes = [ctypes.c_int, _i32p, _i32p, _i32p]

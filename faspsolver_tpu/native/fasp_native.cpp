@@ -1,10 +1,10 @@
 // fasp_native — native host-side graph/factorization kernels.
 //
-// The compute path of the framework is JAX/XLA/Pallas on TPU; these are the
+// The compute path of the framework is JAX/XLA on the device; these are the
 // *setup-phase* irregular graph algorithms (the part the reference
 // implements as serial C: BlaILU.c, BlaSparseCSR.c multicoloring,
 // PreAMGAggregation*.inl, BlaILUSetupBSR.c topologic_sort_ILU).  They are
-// sequential pointer-chasing workloads — the wrong shape for a TPU and for
+// sequential pointer-chasing workloads — the wrong shape for a GPU and for
 // NumPy — so they live here as a small C++ library with a plain C ABI,
 // loaded via ctypes (no pybind11 dependency).
 //
@@ -767,7 +767,7 @@ int64_t fasp_strength_graph(int n, const int32_t* indptr,
             offsum += v;
         }
         // strict <, matching the reference's row_sum < (2-mrs)*|a_ii|
-        // with row_sum including the diagonal (ADVICE r4)
+        // with row_sum including the diagonal
         const bool isolated = offsum < (1.0 - max_row_sum) * std::fabs(diag);
         int32_t c = 0;
         if (!isolated && row_max > 0.0) {

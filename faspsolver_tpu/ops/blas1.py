@@ -1,11 +1,12 @@
 """BLAS-1 vector primitives for the solve phase.
 
 Reference: base/src/BlaArray.c / BlaVector.c (fasp_blas_darray_axpy /
-dotprod / norm2 / ...).  On TPU these are trivial jnp expressions — the value
-here is (a) a stable naming layer mirroring the reference API for parity
-audits, and (b) *fused* combinations that keep Krylov inner loops to a
-minimal number of HBM passes (XLA fuses chains of these into single kernels;
-the fused helpers document the intended fusion groups).
+dotprod / norm2 / ...).  On the device these are trivial jnp
+expressions — the value here is (a) a stable naming layer mirroring the
+reference API for parity audits, and (b) *fused* combinations that keep
+Krylov inner loops to a minimal number of HBM passes (XLA fuses chains
+of these into single kernels; the fused helpers document the intended
+fusion groups).
 
 Distributed note: under shard_map these same expressions work unchanged —
 dot/norm reductions become psum collectives (see parallel/pcsr.py).

@@ -1,9 +1,9 @@
 """Device operator for structured-grid banded block (STR) matrices.
 
 Reference: dSTRmat (fasp.h:316-348) + fasp_blas_dstr_mxv (BlaSpmvSTR.c).
-On TPU the STR layout is the ideal one: each band is a dense
+On the device the STR layout is the ideal one: each band is a dense
 (ngrid, nc, nc) array, and SpMV is a sum of statically-shifted batched
-block products — zero gathers, einsum maps onto the MXU/VPU.
+block products — zero gathers, one einsum per band.
 """
 from __future__ import annotations
 
@@ -42,14 +42,17 @@ class StrOperator:
     def __call__(self, x: jax.Array) -> jax.Array:
         ng, nc = self.ng, self.nc
         xb = x.reshape(ng, nc)
-        y = jnp.einsum("gab,gb->ga", self.diag, xb)
+        hi = jax.lax.Precision.HIGHEST
+        y = jnp.einsum("gab,gb->ga", self.diag, xb, precision=hi)
         for off, band in zip(self.offsets, self.bands):
             if off > 0:
-                contrib = jnp.einsum("gab,gb->ga", band[:ng - off], xb[off:])
+                contrib = jnp.einsum("gab,gb->ga", band[:ng - off], xb[off:],
+                                     precision=hi)
                 y = y.at[:ng - off].add(contrib)
             else:
                 k = -off
-                contrib = jnp.einsum("gab,gb->ga", band[k:], xb[:ng - k])
+                contrib = jnp.einsum("gab,gb->ga", band[k:], xb[:ng - k],
+                                     precision=hi)
                 y = y.at[k:].add(contrib)
         return y.reshape(-1)
 

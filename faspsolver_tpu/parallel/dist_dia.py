@@ -3,7 +3,7 @@
 The gather-free structured path distributes naturally: a banded SpMV's
 statically-shifted reads touch at most ``max|offset|`` remote entries per
 shard boundary, so under GSPMD the row-block-sharded DIA SpMV lowers to a
-neighbor halo exchange (collective-permute over ICI) plus purely local
+neighbor halo exchange (collective-permute) plus purely local
 shifted multiply-adds — the textbook distributed stencil pattern
 (SURVEY.md §7 step 11).  Krylov reductions lower to psum.
 

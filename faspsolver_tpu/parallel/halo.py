@@ -1,15 +1,15 @@
 """Explicit halo-exchange distributed DIA SpMV (shard_map + ppermute).
 
 This is the performance distribution layer SURVEY.md §7 step 11 calls
-for — the TPU redesign of a domain-decomposed MPI SpMV (which the
+for — the device redesign of a domain-decomposed MPI SpMV (which the
 reference does not have; it is OpenMP-only, SURVEY §2.9):
 
 - vectors and band arrays are ROW-BLOCK sharded over a 1-D mesh axis:
   shard i owns the contiguous flat-index slab [i*n_loc, (i+1)*n_loc);
 - a banded SpMV with max offset magnitude ``h`` needs exactly the h
   entries on either side of the slab (the halo) — exchanged with the two
-  neighbors via ``jax.lax.ppermute`` (lowers to collective-permute riding
-  ICI, NOT an all-gather of the whole vector);
+  neighbors via ``jax.lax.ppermute`` (lowers to a collective-permute
+  between neighbouring devices, NOT an all-gather of the whole vector);
 - communication/computation OVERLAP: the interior contribution (every
   term that only reads the local slab) is expressed independently of the
   received halos, so XLA's latency-hiding scheduler runs the big
@@ -333,7 +333,7 @@ def assert_neighbor_comm_only(hlo: str, fine_n: int) -> None:
         line = hlo[line_start:hlo.find("\n", m.start())]
         # size operands of ANY dtype (f32/f64/s32/u8/bf16/pred...): an
         # integer index array all-gather is as much a contract breach as
-        # a float one (ADVICE r3)
+        # a float one
         shapes = re.findall(r"(?:f|s|u|bf|pred)\d*\[([\d,]*)\]", line)
         for s in shapes:
             elems = 1

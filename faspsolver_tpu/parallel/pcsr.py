@@ -1,14 +1,14 @@
 """Distributed row-block-partitioned sparse operators over a device mesh.
 
 This is the capability the reference does NOT have (it is OpenMP
-shared-memory only — SURVEY.md §2.9): scale-out across TPU chips via
+shared-memory only — SURVEY.md §2.9): scale-out across devices via
 jax.sharding.  Design (SURVEY.md §7 step 11, "How to Scale Your Model"
 recipe):
 
 - the ELL arrays are row-block sharded over a 1-D mesh axis; solution /
   rhs / residual vectors are sharded the same way;
 - SpMV needs remote x entries (the "halo"): expressed as a plain gather in
-  the sharded program, GSPMD turns it into the required all_gather over ICI;
+  the sharded program, GSPMD turns it into the required all_gather;
   reductions in the Krylov loop (dot/norm) lower to psum collectives;
 - coarse AMG levels below a size threshold are replicated (the analog of
   the reference gathering the coarse grid into a serial direct solver,
@@ -17,8 +17,8 @@ recipe):
   concern, not an algorithm rewrite.
 
 An explicit shard_map halo-exchange SpMV (ppermute pipelining for banded
-operators) is the planned perf upgrade; the GSPMD path is the correctness
-baseline and already rides ICI for its collectives.
+operators) lives in halo.py; this GSPMD path is the correctness
+baseline.
 """
 from __future__ import annotations
 
@@ -35,7 +35,9 @@ from ..ops.operators import EllOperator, default_dtype
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "rows") -> Mesh:
     """1-D device mesh over the first n_devices devices
-    (the TPU analog of reference thread-count control, AuxThreads.c)."""
+    (the device analog of reference thread-count control,
+    AuxThreads.c).  Every device reaches every other, so the mesh
+    follows the row partition alone."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if len(devs) < n:

@@ -372,7 +372,7 @@ def tentative_prolongation_nk(agg: np.ndarray, nagg: int, B: np.ndarray
 
     Batched Loewdin orthonormalization Q = X (X^T X)^{-1/2} — padded rows
     stay exactly zero, so aggregates of different sizes batch into one
-    (nagg, max_size, m) einsum + (nagg, m, m) eigh: MXU-shaped setup.
+    (nagg, max_size, m) einsum + (nagg, m, m) eigh: batched setup.
     Returns (P_tent (n, nagg*m) CSR, coarse basis (nagg*m, m) = the
     (X^T X)^{1/2} factors, i.e. R such that X = Q R).
     """

@@ -328,8 +328,8 @@ class BandMatrix:
 
     def to_nd_operator(self):
         """Grid-aware device operator (DiaNdOperator): per-axis shifted
-        SpMV — keeps axis-0 moves sublane-aligned (2.8x over the flat
-        DiaOperator on TPU; see tools/spmv_explore.py)."""
+        SpMV — axis-0 moves are whole-row moves (see
+        tools/spmv_explore.py)."""
         import jax.numpy as jnp
         from ...ops.operators import DiaNdOperator
         coords, stack = self._stack()

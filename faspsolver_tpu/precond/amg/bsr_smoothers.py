@@ -4,7 +4,7 @@ Reference: base/src/ItrSmootherBSR.c (fasp_smoother_dbsr_jacobi,
 gs_ascend/descend using precomputed diaginv block inverses,
 BlaSparseBSR.c fasp_dbsr_getdiaginv).
 
-TPU-native: each color's block rows are pre-gathered; a sweep is a batched
+Device form: each color's block rows are pre-gathered; a sweep is a batched
 (nb,nb)x(nb,) contraction per color — the block analog of the scalar
 multicolor GS in smoothers.py.
 """
@@ -91,9 +91,11 @@ def bsr_color_sweep(sm: BsrSmootherData, x, b, order):
         blk = sm.colors[ci]
         # off-block contribution: (nc, k, nb, nb) x (nc, k, nb) -> (nc, nb)
         gathered = xb[blk.cols]
-        off = jnp.einsum("rkab,rkb->ra", blk.vals, gathered)
+        off = jnp.einsum("rkab,rkb->ra", blk.vals, gathered,
+                         precision=jax.lax.Precision.HIGHEST)
         rhs = bb[blk.rows] - off
-        xn = jnp.einsum("rab,rb->ra", blk.dinv, rhs)
+        xn = jnp.einsum("rab,rb->ra", blk.dinv, rhs,
+                        precision=jax.lax.Precision.HIGHEST)
         if sm.relax != 1.0:
             xn = xb[blk.rows] + sm.relax * (xn - xb[blk.rows])
         xb = xb.at[blk.rows].set(xn)
@@ -105,7 +107,8 @@ def bsr_smooth(sm: BsrSmootherData, A, x, b, nsweeps: int, forward: bool):
     for _ in range(nsweeps):
         if kind == SmootherType.JACOBI:
             r = (b - A(x)).reshape(-1, sm.nb)
-            dx = jnp.einsum("rab,rb->ra", sm.dinv, r).reshape(-1)
+            dx = jnp.einsum("rab,rb->ra", sm.dinv, r,
+                            precision=jax.lax.Precision.HIGHEST).reshape(-1)
             x = x + sm.relax * dx
         elif kind in (int(SmootherType.GS), int(SmootherType.SOR)):
             order = range(len(sm.colors)) if forward else \

@@ -65,7 +65,7 @@ def strong_couplings(A: CSRMatrix, theta: float,
     # rows dominated by their diagonal: drop all couplings
     d = np.abs(A.diagonal())
     # strict < for exact reference parity (row_sum < (2-mrs)|a_ii|,
-    # PreAMGCoarsenRS.c strong_couplings; ADVICE r4)
+    # PreAMGCoarsenRS.c strong_couplings)
     isolated = offsum < (1.0 - max_row_sum) * d
 
     keep = off & (neg > theta * np.maximum(row_max[rows], 1e-300)) \

@@ -4,7 +4,7 @@ Reference: base/src/PreMGCycle.c:48 (fasp_solver_mgcycle, non-recursive
 slash cycle with per-level counters), PreMGRecur.c (recursive form),
 PreMGRecurAMLI.c:58/:291 (AMLI / nonlinear AMLI), PreMGCycleFull.c:47 (FMG).
 
-TPU-native: the hierarchy depth and all level shapes are static, so the
+Device form: the hierarchy depth and all level shapes are static, so the
 cycle is *unrolled at trace time* — recursion in Python, zero control-flow
 overhead at runtime, every level's kernels specialized to its shapes.  The
 visit pattern (V=1 visit, W=2, hybrid VW/WV by level parity) reproduces the
@@ -88,7 +88,10 @@ def _cycle(hier: AMGHierarchy, l: int, b, x):
         # extra near-kernel solve (reference: PreMGCycle.c:369-391):
         # x += B (B^T A B)^{-1} B^T (b - A x)
         rr = b - lvl.A(x)
-        x = x + lvl.nk.B @ (lvl.nk.Ainv @ (lvl.nk.B.T @ rr))
+        hi = jax.lax.Precision.HIGHEST
+        x = x + jnp.dot(lvl.nk.B, jnp.dot(
+            lvl.nk.Ainv, jnp.dot(lvl.nk.B.T, rr, precision=hi),
+            precision=hi), precision=hi)
     return x
 
 

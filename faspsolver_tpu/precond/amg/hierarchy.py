@@ -27,7 +27,7 @@ class NearKernel:
     PreAMGSetupUABSR.c:241-266).  B holds the restricted basis (n, m);
     Ainv = (B^T A B)^{-1} precomputed dense on host.  The cycle applies
     x += B Ainv B^T (b - A x) after post-smoothing (PreMGCycle.c:369-391)
-    — two skinny dense matmuls, ideal MXU shapes."""
+    — two skinny dense matmuls."""
 
     B: jax.Array          # (n, m) restricted near-kernel basis
     Ainv: jax.Array       # (m, m)
@@ -45,33 +45,33 @@ class AMGLevel:
     nk: Optional[NearKernel] = None       # near-kernel correction data
     # optional gather-free SMOOTHING operator (filtered-matrix smoothing,
     # same family as the reference's SA smooth_filter, PreAMGSetupSA.c):
-    # on TPU a hybrid DIA+COO level pays ~15x per SpMV for its small COO
-    # remainder (arbitrary-index gathers, CLAUDE.md ground truth), and
-    # 12 of the ~14 SpMVs per level per cycle are smoother applications
-    # that do not need the exact operator — residuals/transfers keep A.
+    # a hybrid DIA+COO level pays for its small COO remainder with
+    # arbitrary-index gathers on every SpMV, and 12 of the ~14 SpMVs per
+    # level per cycle are smoother applications that do not need the
+    # exact operator — residuals/transfers keep A.
     Asm: Optional[Any] = None
 
 
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class CoarseSolver:
-    """Coarsest-grid direct solve as a dense inverse matmul (MXU path).
+    """Coarsest-grid direct solve as a dense inverse matmul.
 
     Reference gathers the coarsest grid into a serial direct solver
     (fasp_coarse_itsolver / UMFPACK / MUMPS, PreMGCycle.c:156-202 and
     PreAMGSetupRS.c:276-313).  Here the factorization runs on host at setup
     (in float64, like the reference's direct solvers) and the device keeps
-    the inverse: the apply is one (n,n)x(n,) matmul — no on-device LU,
-    which TPU backends don't support in f64 anyway.
+    the inverse: the apply is one (n,n)x(n,) matmul — no on-device LU
+    inside the cycle.
     """
 
     inv: jax.Array
 
     def __call__(self, b: jax.Array) -> jax.Array:
-        # HIGHEST matmul precision: TPU's default f32 matmul runs in
-        # bf16 passes, which degrades the coarse solve to ~3 digits and
-        # costs V-cycle iterations (the level is tiny — full precision
-        # is free)
+        # HIGHEST matmul precision: a default-precision f32 matmul may
+        # run in TF32 (10 mantissa bits) on a GPU, which degrades the
+        # coarse solve to ~3 digits and costs V-cycle iterations (the
+        # level is tiny — full precision is free)
         return jnp.matmul(self.inv, b, precision=jax.lax.Precision.HIGHEST)
 
     @classmethod

@@ -35,7 +35,7 @@ def interp_energymin(A: CSRMatrix, cf_marker: np.ndarray, S: sp.csr_matrix,
     """Energy-minimizing interpolation (reference: fasp_amg_interp_em,
     PreAMGInterpEM.c — local least-squares energy minimization).
 
-    TPU-era formulation: start from direct interpolation and run damped
+    Formulation: start from direct interpolation and run damped
     constrained-Jacobi energy-minimization sweeps
 
         P <- P - omega D^{-1} A P,   restricted to the sparsity pattern

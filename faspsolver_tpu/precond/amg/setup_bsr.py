@@ -5,7 +5,7 @@ to a scalar strength graph (condenseBSR, PreAMGAggregationBSR.inl:20),
 aggregate there, expand the boolean P to blocks, block RAP
 (fasp_blas_dbsr_rap), per-level precomputed block-diagonal inverses.
 
-TPU-native: the block RAP with boolean P is a pure segment-sum over
+Device form: the block RAP with boolean P is a pure segment-sum over
 (nnzb, nb, nb) block arrays — no SpGEMM; levels carry BsrEllOperator +
 block multicolor smoothers.
 """

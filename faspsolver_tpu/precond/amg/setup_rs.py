@@ -59,7 +59,7 @@ def _smoothing_bands(Al: CSRMatrix, dtype, max_bands: int = 64):
     completed) + row-sum diagonal compensation for everything dropped
     (the SA smooth_filter rule).  Smoother-only — residuals/transfers
     keep the exact operator, so this trades nothing but smoother
-    quality for the ~165x banded-vs-gather TPU read advantage."""
+    quality for reading bands in order instead of gathering."""
     from ...ops.operators import DiaOperator, asdev
     n = Al.nrow
     rows = np.repeat(np.arange(n, dtype=np.int64), Al.row_nnz())
@@ -104,8 +104,8 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
     levels with their gather-free banded part only (AMGLevel.Asm) while
     residuals/transfers keep the exact operator — the filtered-matrix
     smoothing idea of the reference's SA smooth_filter
-    (PreAMGSetupSA.c), applied because TPU arbitrary-index gathers cost
-    ~165x a banded read (CLAUDE.md).  Off by default: conformance runs
+    (PreAMGSetupSA.c), applied so the smoother reads bands in order
+    instead of gathering.  Off by default: conformance runs
     keep exact-operator smoothing and the golden iteration counts."""
     import time as _time
 
@@ -212,8 +212,7 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
                 P=None, R=None, smoother=None))
             break
         # gather-frugal transfers: embed coarse dofs at their C-points'
-        # fine positions so P/R become static shifted reads (VERDICT r3
-        # item 1 — COO gathers were ~70% of cycle time at 1M dof);
+        # fine positions so P/R become static shifted reads;
         # falls back to COO when P doesn't band-compress
         t0 = _time.perf_counter()
         bt = banded_transfer(Ps[l], np.flatnonzero(markers[l] == CGPT),
@@ -310,7 +309,7 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
             # cheap distinct-offset count BEFORE materializing bands: the
             # NumPy band fallback densely allocates (k, n) f64, which for
             # an unstructured/permuted matrix with thousands of distinct
-            # offsets would be tens of GB (ADVICE r3).  Native histogram
+            # offsets would be tens of GB.  Native histogram
             # when available (the np.unique form lexsorts all nnz).
             from ... import native as _native
             _h = _native.dia_hist(A)

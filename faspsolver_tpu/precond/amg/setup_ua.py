@@ -7,7 +7,7 @@ with an adaptive strength threshold per level (:234-238) and graceful
 termination when aggregation stalls.
 
 Device artifacts per level: ELL operator for A, gather/segment transfer
-ops (no P matrix materialized — the whole point of UA on TPU), smoother
+ops (no P matrix materialized — the whole point of UA), smoother
 data, dense-LU coarsest solver.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ def setup_ua(A: CSRMatrix, param: Optional[AMGParam] = None,
     param = param or AMGParam()
     dtype = dtype or default_dtype()
 
-    # TPU fast path: large banded matrices get the gather-free structured
+    # fast path: large banded matrices get the gather-free structured
     # hierarchy (DIA operators + reshape pair transfers) — see structured.py.
     # Honesty rule (same as aggregate()'s substitution warning): the
     # structured hierarchy IS pairwise aggregation specialized to grid

@@ -4,7 +4,7 @@ SOR, and fused Chebyshev polynomial smoothing.
 Reference: base/src/ItrSmootherCSR.c (jacobi :98, gs :251, gs_cf :432,
 sgs :808, sor :932, L1DIAG), ItrSmootherCSRpoly.c (polynomial).
 
-TPU-native design: sequential GS is re-expressed as *multicolor* GS — the
+Device design: sequential GS is re-expressed as *multicolor* GS — the
 reference's own OpenMP parallelization strategy (MULTI_COLOR_ORDER,
 fasp.h:42-50; fasp_smoother_dcsr_gs_multicolor, BlaSparseCSR.c:2123).  Each
 color is one dense batched update:

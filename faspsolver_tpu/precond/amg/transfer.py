@@ -5,7 +5,7 @@ PreAMGAggregationCSR.inl:40; fast paths mxv_agg / rap_agg,
 BlaSpmvCSR.c:438,1276) and general sparse P/R from classical/smoothed
 interpolation (PreAMGInterp.c).
 
-TPU-native: a boolean (unsmoothed-aggregation) P never materializes as a
+Device form: a boolean (unsmoothed-aggregation) P never materializes as a
 matrix — prolongation is a gather ``x_f = x_c[agg]`` and restriction is a
 ``segment_sum`` — which is exactly why the reference special-cases boolean P.
 General P/R use the ELL operator.
@@ -106,7 +106,7 @@ class CooProlong:
     """General sparse prolongation in COO form.  The SAME three arrays
     serve the transposed restriction (:class:`CooRestrict` holds
     references to them), so R = P^T costs zero extra device memory —
-    the TPU answer to the reference's explicit fasp_dcsr_trans copy."""
+    unlike the reference's explicit fasp_dcsr_trans copy."""
 
     rows: jax.Array      # (nnz_pad,) int32 fine ids (pad -> n_fine, dropped)
     cols: jax.Array      # (nnz_pad,) int32 coarse ids (pad -> n_coarse)
@@ -178,7 +178,8 @@ class BandedProlong:
     derived from P itself); efficiency is what depends on the geometry.
 
     Reference: transfer applies are plain SpMVs inside the MG cycle
-    (PreMGCycle.c:135-227, BlaSpmvCSR.c:242); this is their TPU form.
+    (PreMGCycle.c:135-227, BlaSpmvCSR.c:242); this is their banded device
+    form.
     """
 
     fpos: jax.Array      # (n_coarse,) int32 fine position of coarse dof j
@@ -341,7 +342,6 @@ def banded_transfer(P: CSRMatrix, fpos: np.ndarray, dtype=None,
     # nf/8 bytes, not nf*itemsize, and grid-born interpolation compresses
     # almost entirely; rejecting on the full-band estimate here would
     # push perfectly banded mid-level transfers onto the COO gather path
-    # (measured 9 ms/cycle at the 131k level vs <1 ms banded)
     # lane assignment (deterministic: shifts sorted by value); direct
     # shift->lane lookup table instead of an inverse-index pass
     kept_sorted = np.sort(uniq[kept])

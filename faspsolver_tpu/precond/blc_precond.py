@@ -6,7 +6,7 @@ diagonal) approximations of the diagonal blocks, plus the layered
 "sweeping" preconditioner for Helmholtz-type block-tridiagonal systems
 (fasp_precond_dblc_sweeping, data struct fasp_block.h:398-414).
 
-TPU-native: each sub-block becomes a device operator; diagonal-block
+Device form: each sub-block becomes a device operator; diagonal-block
 inverses are AMG hierarchies (the same gather-free machinery as the scalar
 path) or Jacobi; the block structure is unrolled at trace time, so a
 block-preconditioned Krylov iteration is still one XLA program.

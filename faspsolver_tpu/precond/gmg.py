@@ -5,7 +5,7 @@ full-MG fgmg* :442-650, CG-accelerated gmgcg* :754-959) with stencil
 kernels in base/src/PreGMG.inl (residual :34-:180, restriction2d5pt :387,
 interpolation2d5pt :495, red-black GS gs2d_2color :604).
 
-TPU-native: grids are dense (nx[,ny[,nz]]) arrays with one-cell zero halo;
+Device form: grids are dense (nx[,ny[,nz]]) arrays with one-cell zero halo;
 the 2/3/5/7-point stencils are shift-adds XLA fuses into single passes;
 red-black Gauss-Seidel uses checkerboard masks (the reference's own
 gs2d_2color is already the parallel formulation).  The hierarchy depth is

@@ -4,12 +4,12 @@ Reference: base/src/BlaILU.c (fasp_iluk :72, fasp_ilut :467, fasp_ilutp
 :906 — SPARSKIT-style row-wise IKJ factorization), BlaILUSetupCSR.c:40
 (dispatch), PreCSR.c:198 (fasp_precond_ilu: z = U^{-1} L^{-1} r).
 
-TPU-native apply: sequential triangular solves don't vectorize, so the
+Device apply: sequential triangular solves don't vectorize, so the
 apply uses *level-scheduled* batched substitution — rows grouped into
 dependency levels; each level is one dense gather+reduce step.  This is the
 same strategy as the reference's own parallel ILU appliers
 (topologic_sort_ILU / fasp_precond_dbsr_ilu_ls_omp, BlaILUSetupBSR.c,
-PreBSR.c:844) taken to its TPU conclusion (SURVEY.md §2.9).
+PreBSR.c:844) taken to its batched conclusion (SURVEY.md §2.9).
 
 Factorization itself is a setup-phase host algorithm (scipy.sparse.spilu
 for ILUt-style drop-tolerance factorization; a pure-python IKJ ILU(k) for
@@ -192,7 +192,7 @@ class _TriLevel:
 class _TriScan:
     """A run of consecutive small levels executed as ONE lax.scan step
     sequence — bounds trace/compile size for factors whose level count
-    grows with n (VERDICT r1: no per-level kernel unrolling blowup).
+    grows with n.
     Rows are padded with the scratch index n; padded dinv = 0 writes 0."""
 
     rows: jax.Array      # (L, m_pad)
@@ -353,7 +353,7 @@ class _BTriLevel:
 class BlockTriangularSolver:
     """Level-scheduled BLOCK triangular solve: each level is one batched
     (m,k,nb,nb)x(m,k,nb) contraction + a batched (m,nb,nb)x(m,nb) solve —
-    the MXU-batched conclusion of the reference's level-scheduled BSR ILU
+    the batched conclusion of the reference's level-scheduled BSR ILU
     appliers (fasp_precond_dbsr_ilu_ls_omp, PreBSR.c:844)."""
 
     levels: Tuple[_BTriLevel, ...]
@@ -365,9 +365,12 @@ class BlockTriangularSolver:
         xp = jnp.zeros((self.n + 1, nb), dtype=b.dtype)
         bp = jnp.concatenate([b, jnp.zeros((1, nb), dtype=b.dtype)])
         for lv in self.levels:
-            acc = jnp.einsum("mkab,mkb->ma", lv.vals, xp[lv.cols])
+            hi = jax.lax.Precision.HIGHEST
+            acc = jnp.einsum("mkab,mkb->ma", lv.vals, xp[lv.cols],
+                             precision=hi)
             rhs = bp[lv.rows] - acc
-            xp = xp.at[lv.rows].set(jnp.einsum("mab,mb->ma", lv.dinv, rhs))
+            xp = xp.at[lv.rows].set(jnp.einsum("mab,mb->ma", lv.dinv, rhs,
+                                               precision=hi))
         return xp[: self.n]
 
 

@@ -60,8 +60,10 @@ class AMGNKPrecond:
     def __call__(self, r: jax.Array) -> jax.Array:
         z = AMGPrecond(self.hier, maxit=self.maxit)(r)
         resid = r - self.A_op(z)
-        coeffs = self.gram_inv @ (self.nk.T @ resid)
-        return z + self.nk @ coeffs
+        hi = jax.lax.Precision.HIGHEST
+        coeffs = jnp.dot(self.gram_inv, jnp.dot(self.nk.T, resid,
+                                                precision=hi), precision=hi)
+        return z + jnp.dot(self.nk, coeffs, precision=hi)
 
 
 @jax.tree_util.register_dataclass

@@ -6,9 +6,9 @@ blocks; per-block direct factorization; forward/backward multiplicative
 sweeps (fasp_dcsr_swz_forward/backward), wrapped as a preconditioner
 (fasp_precond_swz, PreCSR.c:371).
 
-TPU-native: blocks are padded to a common size and their LU factors live as
+Device form: blocks are padded to a common size and their LU factors live as
 one batched (nblk, m, m) array — a block solve is a single vmapped
-``lu_solve`` (MXU batched path).  The reference's sequential multiplicative
+``lu_solve`` (batched).  The reference's sequential multiplicative
 sweep becomes *color-batched*: blocks are colored on their overlap graph;
 within a color all solves run in one batch, colors run in sequence
 (forward) or reverse (backward) — same trick as the multicolor GS smoother.
@@ -91,8 +91,9 @@ class SchwarzPrecond:
             rloc = jnp.where(g.mask > 0, r[jnp.minimum(g.dofs, self.n - 1)],
                              0.0)
             # batched dense block solve via precomputed inverses: one
-            # (nb,m,m)x(nb,m) contraction -> MXU batched matmul
-            e = jnp.einsum("bij,bj->bi", g.inv, rloc) * g.mask
+            # (nb,m,m)x(nb,m) batched contraction
+            e = jnp.einsum("bij,bj->bi", g.inv, rloc,
+                           precision=jax.lax.Precision.HIGHEST) * g.mask
             dx = jnp.zeros_like(x).at[g.dofs.reshape(-1)].add(
                 e.reshape(-1), mode="drop")
             x = x + dx

@@ -4,9 +4,9 @@ Reference: base/src/PreSTR.c (fasp_precond_dstr_diag :49, _ilu0/_ilu1,
 _blockgs) and ItrSmootherSTR.c (fasp_smoother_dstr_jacobi/gs/sor +
 fasp_generate_diaginv_block).
 
-TPU-native choices:
+Device choices:
 - block-diagonal preconditioner: one batched (ng, nc, nc)x(ng, nc)
-  contraction with precomputed block inverses (MXU path);
+  contraction with precomputed block inverses;
 - block Gauss-Seidel: the reference sweeps grid points sequentially; here
   the sweep is red-black over the grid parity (exact GS ordering for
   bipartite stencils — the 5/7-point structured case this format exists
@@ -43,7 +43,8 @@ class StrDiagPrecond:
 
     def __call__(self, r: jax.Array) -> jax.Array:
         rb = r.reshape(self.ng, self.nc)
-        return jnp.einsum("gab,gb->ga", self.dinv, rb).reshape(-1)
+        return jnp.einsum("gab,gb->ga", self.dinv, rb,
+                          precision=jax.lax.Precision.HIGHEST).reshape(-1)
 
 
 def _grid_parity(A: STRMatrix) -> np.ndarray:
@@ -72,7 +73,7 @@ class StrBlockGSPrecond:
     """Block Gauss-Seidel sweeps (reference: fasp_precond_dstr_blockgs,
     PreSTR.c; ItrSmootherSTR fasp_smoother_dstr_gs).  Red-black masked when
     the stencil is bipartite; damped block-Jacobi otherwise (documented
-    deviation — sequential grid sweeps have no gather-free TPU form)."""
+    deviation — sequential grid sweeps have no gather-free parallel form)."""
 
     A: StrOperator
     dinv: jax.Array                 # (ng, nc, nc)
@@ -82,7 +83,8 @@ class StrBlockGSPrecond:
     def _sweep(self, x, b, mask):
         r = b - self.A(x)
         rb = r.reshape(self.A.ng, self.A.nc)
-        upd = jnp.einsum("gab,gb->ga", self.dinv, rb)
+        upd = jnp.einsum("gab,gb->ga", self.dinv, rb,
+                         precision=jax.lax.Precision.HIGHEST)
         return x + (mask[:, None] * upd).reshape(-1)
 
     def __call__(self, r: jax.Array) -> jax.Array:
@@ -311,9 +313,9 @@ class StrSchwarzSmoother:
     patch system with a precomputed factorization, and add the
     correction to the node and its neighbours.
 
-    TPU-native form: nodes are COLOR-BATCHED so that patches within one
-    color are disjoint — each color is one batched dense (m, m) solve on
-    the MXU, with the residual refreshed between colors.  This is the
+    Device form: nodes are COLOR-BATCHED so that patches within one
+    color are disjoint — each color is one batched dense (m, m) solve,
+    with the residual refreshed between colors.  This is the
     same multiplicative-across / additive-within-color semantics as the
     multicolor GS family (documented deviation: the reference refreshes
     the residual after EVERY node; with singleton colors the two
@@ -335,7 +337,8 @@ class StrSchwarzSmoother:
         ri = r[jnp.clip(mem, 0, ng - 1)] * val[:, :, None]   # (q, k1, nc)
         q, k1 = mem.shape
         e = jnp.einsum("qab,qb->qa", self.inv[nodes],
-                       ri.reshape(q, k1 * nc))  # (q, m)
+                       ri.reshape(q, k1 * nc),  # (q, m)
+                       precision=jax.lax.Precision.HIGHEST)
         e = (e.reshape(q, k1, nc) * val[:, :, None]).reshape(-1, nc)
         xb = x.reshape(ng, nc)
         flat = jnp.where(val.reshape(-1) > 0, mem.reshape(-1), ng)

@@ -288,7 +288,7 @@ def mm_problems(datadir: str = REFDATA):
     bcsstk16 / s2rmq4m1 are in the reference's grid but not shipped
     (data/.MISSING_LARGE_BLOBS), so generated SPD structural stand-ins of
     the same size/dof-structure/conditioning regime complete the
-    12-matrix grid (testgen/structural.py; VERDICT r4 item 5)."""
+    12-matrix grid (testgen/structural.py)."""
     rng = np.random.default_rng(17)
     names = ["e05r0500", "orsreg_1", "steam2", "jpwh_991", "gre__115",
              "add32", "sherman1", "watt__1", "lns__131", "nos7"]
@@ -342,8 +342,8 @@ def mm_configs() -> List[Tuple[str, Callable]]:
     ]
     cache: dict = {}
 
-    # stronger ILU factors for the rescue ladder ("ILU fill tuning",
-    # VERDICT r4 item 3 — maxit/tol budgets stay the reference's)
+    # stronger ILU factors for the rescue ladder ("ILU fill tuning";
+    # maxit/tol budgets stay the reference's)
     strong_fb = {
         " + ILUk": lambda A: setup_ilu(A, ILUParam(
             ILU_type=int(ILUType.ILUK), ILU_lfil=8)),
@@ -385,7 +385,7 @@ def mm_configs() -> List[Tuple[str, Callable]]:
 
             if true_rr(res) <= 1e-9:
                 return res
-            # RESCUE LADDER (VERDICT r4 item 3): the first attempt
+            # RESCUE LADDER: the first attempt
             # failed, so retry (a) symmetric-diagonally scaled
             # (fasp_dcsr_symdiagscale analog) and, for ILU families,
             # (b) scaled + stronger factorization.  Same solver, same

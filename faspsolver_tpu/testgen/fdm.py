@@ -99,7 +99,7 @@ def block_poisson_3d(nx: int, ny: int = 0, nz: int = 0, nb: int = 3,
 
 
 # ---------------------------------------------------------------------------
-# Benchmark-corpus families (VERDICT r4 item 4): the reference scores up
+# Benchmark-corpus families: the reference scores up
 # to 235 SuiteSparse problems (benchmark/input.dat); with no network the
 # corpus DIVERSITY is matched by generated families — anisotropy, jump
 # coefficients, convection-diffusion (nonsymmetric), stretched grids —

@@ -8,7 +8,7 @@ elimination).  Produces exact-solution test systems so solvers can be
 checked end-to-end, like regression problem 2 (csrmat_FE corpus).
 
 Everything is vectorized NumPy — assembly is a setup/test-path concern,
-not a TPU kernel.
+not a device kernel.
 """
 from __future__ import annotations
 

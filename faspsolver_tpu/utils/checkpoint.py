@@ -2,7 +2,7 @@
 
 The reference persists matrices/vectors through its BlaIO writers and
 keeps direct-solver factorizations alive across solves via the staged
-MUMPS/PARDISO job API (XtrMumps.c fasp_solver_mumps_steps).  The TPU-era
+MUMPS/PARDISO job API (XtrMumps.c fasp_solver_mumps_steps).  The device
 equivalent (SURVEY.md §5): serialize the frozen hierarchy pytree (all
 device arrays + static treedef) so an expensive setup is paid once and
 reused across processes, plus plain solver-iterate snapshots.

@@ -1,7 +1,7 @@
 """Error type carrying the reference status-code vocabulary.
 
 Reference: base/src/AuxMessage.c fasp_chkerr aborts with a code + location;
-the TPU build raises a typed exception instead so callers can recover
+this framework raises a typed exception instead so callers can recover
 (e.g. AMG-setup-failure fallback to safeguarded GMRES, SolAMG.c:128-135).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Parameter system: dataclass defaults + ini-file parsing + CLI overrides.
 
-TPU-native re-design of the reference three-layer config system
+Re-design of the reference three-layer config system
 (reference: base/src/AuxParam.c, base/src/AuxInput.c):
 
 1. programmatic defaults  -> dataclass field defaults (``AMGParam()``, ...)

@@ -1,7 +1,7 @@
 """Profiling and memory accounting.
 
 Reference: wall-clock phase timers (AuxTiming.c / fasp_cputime) and
-DEBUG-mode memory accounting (AuxMemory.c fasp_mem_usage).  TPU era:
+DEBUG-mode memory accounting (AuxMemory.c fasp_mem_usage).  Here:
 jax.profiler traces (viewable in TensorBoard/Perfetto) plus pytree
 device-memory reports.
 """

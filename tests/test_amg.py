@@ -203,7 +203,7 @@ def test_ua_level_visits_rule(fe):
 
 
 # ---------------------------------------------------------------------------
-# Compiled general-path RS setup (native C++ row kernels; VERDICT r1 #4)
+# Compiled general-path RS setup (native C++ row kernels)
 # ---------------------------------------------------------------------------
 
 def test_native_interp_parity_with_python(fe):
@@ -233,8 +233,8 @@ def test_native_interp_parity_with_python(fe):
 def test_rs_general_path_scales():
     """General (unstructured-path) RS-AMG on a 65k-dof problem: setup must
     be compiled-speed (seconds, not minutes) and converge like classical
-    AMG.  Guards the VERDICT r1 finding that Python row loops capped the
-    general path at toy sizes."""
+    AMG.  Guards against Python row loops capping the general path at toy
+    sizes."""
     import time
     from faspsolver_tpu.precond.amg import amg_solve, setup_rs
     from faspsolver_tpu.testgen import poisson_2d_manufactured
@@ -360,8 +360,7 @@ def test_c1_filter_drops_in_edges_of_empty_rows():
 def test_iterative_coarse_solver_large_coarse_level():
     """A hierarchy whose coarsest level exceeds _DENSE_COARSE_LIMIT must
     take the Jacobi-CG IterativeCoarseSolver branch (reference analog:
-    fasp_coarse_itsolver, PreMGUtil.inl:25) and still solve (ADVICE r4:
-    this branch was previously untested)."""
+    fasp_coarse_itsolver, PreMGUtil.inl:25) and still solve."""
     import dataclasses
 
     from faspsolver_tpu.precond.amg import setup_rs

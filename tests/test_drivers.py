@@ -69,7 +69,7 @@ def test_safety_net_driver(fd):
 
 # ---------------------------------------------------------------------------
 # Near-kernel machinery (reference: fasp.h:849-852, PreMGCycle.c:369-391,
-# SolBSR.c:476/:634; VERDICT r1 #6)
+# SolBSR.c:476/:634)
 # ---------------------------------------------------------------------------
 
 def _component_basis(A):

@@ -120,7 +120,7 @@ def test_gmg_3d():
 
 
 # ---------------------------------------------------------------------------
-# Native ILUtp + block ILU(0) + deep-level scan solver (VERDICT r1 #7)
+# Native ILUtp + block ILU(0) + deep-level scan solver
 # ---------------------------------------------------------------------------
 
 def test_native_ilutp_pivots_and_factors_exactly():

@@ -141,7 +141,7 @@ def test_zero_rhs(poisson_sys):
 
 def test_solve_refined_mixed_precision():
     """f32 inner solves under the f64 refinement loop must reach f64-level
-    residuals (the TPU performance mode, solvers/refine.py)."""
+    residuals (the f32 performance mode, solvers/refine.py)."""
     import jax.numpy as jnp
     from faspsolver_tpu.krylov import pcg
     from faspsolver_tpu.precond import AMGPrecond

@@ -100,27 +100,29 @@ def test_dia_nd_operator_matches_csr():
                                    rtol=1e-14)
 
 
-def test_const_stencil_pallas_interpret_matches_xla():
-    """The HBM-regime constant-stencil Pallas kernel (interpret mode on
-    CPU) must match the XLA shifted-add path bit-for-bit-ish."""
+def test_const_stencil_5pt_matches_scipy():
+    """A 2-D constant-coefficient 5-point StencilNdOperator (scalar bands,
+    zero Dirichlet halo) on a 128-wide grid equals scipy's CSR product."""
     import jax.numpy as jnp
+    import scipy.sparse as sp
 
-    from faspsolver_tpu.ops.pallas_kernels import const_stencil_apply_2d
+    from faspsolver_tpu.ops.operators import StencilNdOperator
 
-    ny, nx = 96, 256
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(ny * nx).astype(np.float32)
-    coords = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0), (1, 1))
-    cvals = np.array([-0.25, -0.24, 1.01, -0.26, -0.23, 0.05], np.float32)
-    y = np.asarray(const_stencil_apply_2d(
-        jnp.asarray(cvals[:, None]), coords, (ny, nx), jnp.asarray(x),
-        interpret=True))
-    v = x.reshape(ny, nx)
-    vp = np.pad(v, 1)
-    yr = np.zeros_like(v)
-    for c, (dy, dx) in zip(cvals, coords):
-        yr += c * vp[1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx]
-    assert np.abs(y - yr.reshape(-1)).max() < 1e-5
+    ny, nx = 96, 128
+    coords = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+    cvals = (-0.25, -0.24, 1.01, -0.26, -0.23)
+    op = StencilNdOperator(
+        tuple(jnp.full((1, 1), c, jnp.float64) for c in cvals), coords,
+        (ny, nx))
+    ex, ey = sp.eye(nx), sp.eye(ny)
+    A = (cvals[2] * sp.eye(ny * nx)
+         + sp.kron(ey, cvals[1] * sp.eye(nx, k=-1)
+                   + cvals[3] * sp.eye(nx, k=1))
+         + sp.kron(cvals[0] * sp.eye(ny, k=-1)
+                   + cvals[4] * sp.eye(ny, k=1), ex)).tocsr()
+    x = np.random.default_rng(3).standard_normal(ny * nx)
+    np.testing.assert_allclose(np.asarray(op(jnp.asarray(x))), A @ x,
+                               rtol=1e-13, atol=1e-14)
 
 
 def test_refiner_cast_b_f32_upload():
@@ -146,3 +148,83 @@ def test_refiner_cast_b_f32_upload():
     ver = float(np.linalg.norm(b - A.matvec(np.asarray(x)))
                 / np.linalg.norm(b))
     assert ver < 1e-6
+
+
+def _f32_matrix_dots(jaxpr):
+    """dot_general equations with an f32 operand of rank >= 2 (matrix
+    products a GPU may run in TF32), searched through nested jaxprs."""
+    found = []
+    for eqn in jaxpr.eqns:
+        avals = [v.aval for v in eqn.invars]
+        if (eqn.primitive.name == "dot_general"
+                and any(a.dtype == jnp.float32 for a in avals)
+                and any(a.ndim >= 2 for a in avals)):
+            found.append(eqn)
+        for val in eqn.params.values():
+            for sub in (val if isinstance(val, (tuple, list)) else (val,)):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    found += _f32_matrix_dots(inner)
+    return found
+
+
+def _factored_band_f32():
+    from faspsolver_tpu.ops.operators import FactoredBand, factor_band_2d
+    groups = np.ones(40, np.int64)
+    groups[0], groups[-1] = 0, 2
+    core = RNG.standard_normal((3, 3)).astype(np.float32)
+    band = core[groups][:, groups]
+    return band, FactoredBand(*(jnp.asarray(a)
+                                for a in factor_band_2d(band)))
+
+
+def _precision_case(name):
+    """(function, example args) for one f32 product site."""
+    from faspsolver_tpu.krylov import gcr, gmres, vfgmres
+
+    if name in ("factored_apply", "factored_materialize"):
+        band, fb = _factored_band_f32()
+        y = jnp.zeros(band.shape, jnp.float32)
+        if name == "factored_apply":
+            return fb.apply, (y, y + 1)
+        return lambda: fb.materialize(), ()
+    A = poisson_2d(12)
+    b = jnp.asarray(A.matvec(np.ones(A.nrow)), jnp.float32)
+    if name == "nullspace_cycle":
+        import dataclasses
+
+        from faspsolver_tpu.precond.amg import mgcycle, setup_sa
+        from faspsolver_tpu.precond.amg.hierarchy import NearKernel
+        from faspsolver_tpu.utils.params import AMGParam
+        h = setup_sa(A, AMGParam(coarse_dof=20), dtype=jnp.float32)
+        nk = NearKernel(jnp.ones((A.nrow, 2), jnp.float32),
+                        jnp.eye(2, dtype=jnp.float32))
+        h = dataclasses.replace(h, levels=(
+            dataclasses.replace(h.levels[0], nk=nk),) + h.levels[1:])
+        return lambda r: mgcycle(h, r), (b,)
+    op = device_operator(A, dtype=jnp.float32)
+    solver = {"gmres": gmres, "vfgmres": vfgmres, "gcr": gcr}[name]
+    return lambda r: solver(op, r, tol=1e-6, maxit=20, restart=5).x, (b,)
+
+
+@pytest.mark.parametrize("name", ["factored_apply", "factored_materialize",
+                                  "gmres", "vfgmres", "gcr",
+                                  "nullspace_cycle"])
+def test_f32_products_ask_for_highest_precision(name):
+    """Every f32 matrix product on these paths passes Precision.HIGHEST:
+    a default-precision f32 matmul may run in TF32 on a GPU."""
+    fn, args = _precision_case(name)
+    dots = _f32_matrix_dots(jax.make_jaxpr(fn)(*args).jaxpr)
+    assert dots, "no f32 matrix product traced"
+    hi = jax.lax.Precision.HIGHEST
+    for eqn in dots:
+        assert eqn.params["precision"] == (hi, hi), eqn
+
+
+@pytest.mark.gpu
+def test_factored_band_materialize_bit_exact_on_gpu(gpu):
+    """On the card the selector products reproduce the band exactly in
+    f32 (TF32 would round its entries); chip_smoke.py checks the same at
+    4095^2."""
+    band, fb = _factored_band_f32()
+    assert np.array_equal(np.asarray(fb.materialize()), band)

@@ -1,6 +1,6 @@
 """Structured (gather-free) AMG path + band algebra + native kernels.
 
-SURVEY.md §7: the TPU fast path must be exact — band-space Galerkin
+SURVEY.md §7: the structured fast path must be exact — band-space Galerkin
 products are checked against scipy sparse triple products, and the native
 C++ kernels against their Python twins.
 """
@@ -254,29 +254,6 @@ def test_input_matrix_never_mutated():
     solvers.krylov_amg(A, b, its=ITSParam(tol=1e-8, maxit=50))
     assert np.array_equal(A.data, data0)
     assert np.array_equal(A.indices, idx0)
-
-
-def test_pallas_stencil_kernel_interpret():
-    """The explicit-DMA Pallas stencil kernel (interpret mode on CPU) must
-    match the CSR SpMV for 5-point and 9-point stencils."""
-    from faspsolver_tpu.ops import dia_bands_from_csr
-    from faspsolver_tpu.ops.pallas_kernels import StencilSpmv
-    A = poisson_2d(33, 17)                     # odd dims exercise padding
-    offs, bands = dia_bands_from_csr(A)
-    spmv = StencilSpmv(offs, bands, (17, 33), np.float64, tile=8,
-                       interpret=True)
-    x = RNG.standard_normal(A.nrow)
-    np.testing.assert_allclose(np.asarray(spmv(jnp.asarray(x))),
-                               A.matvec(x), rtol=1e-12)
-    # 9-point: Galerkin coarse operator of the structured SA path
-    B = BandMatrix.from_csr(A, (17, 33))
-    Bc = B.pair_rap(0, 2).pair_rap(1, 2)
-    offs_c, flat_c = Bc.flat_offsets()
-    spmv9 = StencilSpmv(offs_c, flat_c, Bc.dims, np.float64, tile=8,
-                        interpret=True)
-    xc = RNG.standard_normal(Bc.n)
-    np.testing.assert_allclose(np.asarray(spmv9(jnp.asarray(xc))),
-                               Bc.to_csr().matvec(xc), rtol=1e-11)
 
 
 # ---------------------------------------------------------------------------

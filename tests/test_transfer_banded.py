@@ -1,4 +1,4 @@
-"""Gather-frugal banded grid transfers (VERDICT r3 item 1).
+"""Gather-frugal banded grid transfers.
 
 The banded P/R (precond/amg/transfer.py BandedProlong/BandedRestrict)
 must be EXACT against the CSR P they were built from — they are an

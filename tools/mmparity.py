@@ -104,7 +104,7 @@ def main():
         ok, md = r[0], r[1]
         note = f"ref: {'PASS' if ok else 'ATTENTION'} (maxdiff {md:.1e})"
         # flag unexplained convergence-quality gaps: both sides fail but
-        # ours is orders worse (VERDICT r4 weak #3)
+        # ours is orders worse
         try:
             if (our_md is not None and not ok
                     and float(our_md) > 100.0 * md):
@@ -181,7 +181,7 @@ def main():
                      f"{'PASS' if r['ok'] else 'ATTENTION'} | "
                      f"{r['maxdiff']} | {rs} | {rm} |")
         L.append("")
-    # ---- ILU iteration-count parity (VERDICT r4 item 9): AMG counts
+    # ---- ILU iteration-count parity: AMG counts
     # are tracked in STATUS; ILU drop-rule drift was invisible.  Pair
     # every ILU-family row's iteration count with the reference's.
     L.append("## ILU iteration-count parity\n")

@@ -4,13 +4,12 @@ Runs the same AMG-PCG solve on 1, 2, 4, and 8 devices of a mesh and
 asserts identical iteration counts (the correctness contract of the
 distribution layer), reporting per-configuration wall times.
 
-On this dev setup only one real TPU chip exists, so run on the virtual
-CPU mesh:
+It runs on a virtual 8-device CPU mesh, where only parity is meaningful
+(timings on the virtual mesh are not device numbers):
 
     python tools/scaling_check.py [n]
 
-On a real multi-chip TPU slice the same script gives true scaling numbers
-(timings there are meaningful; on the virtual CPU mesh only parity is).
+``chip_smoke.py --devices 4`` checks the same parity on four GPUs.
 """
 import os
 import sys

@@ -6,7 +6,6 @@ Run: python tutorials/poisson_amg.py [path-to-data-dir]
 import sys
 
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

@@ -3,7 +3,6 @@
 Reference: tutorial/main/poisson-gmg.c.
 """
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

@@ -5,7 +5,6 @@ Reference: tutorial/main/poisson-its.c (+ ini/its.dat).
 import sys
 
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from faspsolver_tpu.io import read_csrvec

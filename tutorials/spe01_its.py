@@ -5,7 +5,6 @@ Reference: tutorial/main/spe01-its.c (+ ini/its_bsr.dat).
 import sys
 
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

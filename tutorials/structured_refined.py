@@ -1,7 +1,10 @@
-"""The TPU performance mode: structured SA-AMG + f32 + refinement.
+"""The structured performance mode: structured SA-AMG + f32 + refinement.
 
-This is the bench.py configuration as a tutorial — run it on a TPU to see
-the gather-free fast path; on CPU it demonstrates the same API.
+This is the bench.py configuration as a tutorial: a gather-free structured
+hierarchy in f32, inside an f64 refinement loop.  It runs on JAX's default
+device.
+
+Run: python tutorials/structured_refined.py [nx]
 """
 import sys
 import time
@@ -17,8 +20,8 @@ from faspsolver_tpu.testgen import poisson_2d
 from faspsolver_tpu.utils.params import AMGParam
 from faspsolver_tpu.constants import SmootherType
 
-# size as CLI arg: 511 (261k dof) by default; pass 127 for a quick CPU
-# smoke run, 1023 to reproduce the 1M-dof bench problem on a TPU
+# size as CLI arg: 511 (261k dof) by default; pass 127 for a quick smoke
+# run, 1023 for the 1M-dof bench problem
 NX = int(sys.argv[1]) if len(sys.argv) > 1 else 511
 A = poisson_2d(NX)
 b = A.matvec(np.ones(A.nrow))
